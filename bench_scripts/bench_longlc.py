@@ -1,4 +1,4 @@
-"""Standing long-light-curve benchmark (VERDICT r2 item 9).
+"""Standing long-light-curve benchmark.
 
 Times the FULL 15-scenario FPP run (calc_probs, N=1e6 draws/scenario)
 on the unbinned TOI-1228 folded light curve — the longest real curve
@@ -11,7 +11,7 @@ rows) — at two shapes:
 
 Each shape is run twice; the second (warm, compile-cache-served) wall
 time is the standing number. Results append to
-``bench_scripts/results/longlc_r3.json`` and print as one JSON line per
+``bench_scripts/results/longlc.json`` and print as one JSON line per
 shape, mirroring bench.py's schema.
 
 Reference anchor: the reference evaluates the same 15 scenarios through
@@ -36,7 +36,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from validate_golden import REF, toi1228_field, make_trilegal  # noqa: E402
 
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "results", "longlc_r5.json")
+                       "results", "longlc.json")
 
 
 def load_curve(crop: bool):

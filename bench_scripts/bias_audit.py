@@ -1,4 +1,4 @@
-"""Importance-sampling bias audit (VERDICT round-1 item 5).
+"""Importance-sampling bias audit.
 
 The engine's default estimator draws cos(inc) ~ U[0, min(Ptra, 1)] with
 exact ln-weight reweighting (scenarios/engine.py _inc_weighted); the

@@ -1,7 +1,7 @@
 """Measure the shipping f32 deficit stack end-to-end (CPU, ~1 min).
 
 Produces the measured row of the f32 error-budget ledger in
-docs/parity.md (VERDICT r4 ask #4). Run: python bench_scripts/f32_error_stack.py
+docs/parity.md. Run: python bench_scripts/f32_error_stack.py
 
 Stack = cheb_deficit_coeffs_tab (f32, k-tabulated basis + 11-node GL in
 the table build) -> cheb_deficit_eval (f32 Clenshaw) vs the f64 exact

@@ -4,7 +4,7 @@ Runs the full 15-scenario TOI-1228 FPP (N = 1e6 draws) at both long-LC
 shapes — the 8,055-point |t| < 0.4 d in-transit window and the full
 20,099-point unbinned curve — over several independent PRNG keys, and
 reports per-shape FPP mean/sd plus the window-vs-full delta. The
-decision rule (VERDICT r4 item 5): windowing ships as a documented
+decision rule: windowing ships as a documented
 ``calc_probs(lc_window=...)`` option iff the shape delta is within the
 key-to-key Monte-Carlo noise of the full curve.
 
@@ -25,7 +25,7 @@ from validate_golden import REF, toi1228_field, make_trilegal  # noqa: E402
 from bench_longlc import load_curve  # noqa: E402
 
 RESULTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "results", "longlc_window_keys_r5.json")
+                       "results", "longlc_window_keys.json")
 
 
 def run_keys(label, crop, n_keys, N=1000000):

@@ -1,4 +1,4 @@
-"""TPU validation run against the reference's bundled example light
+"""Validation run against the reference's bundled example light
 curves (read at runtime from /root/reference/examples; never copied).
 
 Runs the Kepler-10b and TOI-465-class configurations and prints FPP/NFPP

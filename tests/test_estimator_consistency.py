@@ -45,9 +45,9 @@ def test_is_vs_plain_fpp(tmp_path):
 
 
 def test_is_vs_plain_dominant_lnZ_tight():
-    """VERDICT round-1 item 5: multi-key mean lnZ of the dominant (TP)
+    """Multi-key mean lnZ of the dominant (TP)
     scenario from the IS estimator agrees with plain rejection to well
-    under 0.3 nats (the full 20-key x 1e6/1e7-draw TPU version lives in
+    under 0.3 nats (the full 20-key x 1e6/1e7-draw version lives in
     bench_scripts/bias_audit.py; measured there and on CPU at these
     shapes: |dmean| ~ 0.002 nats)."""
     from triceratops_tpu.scenarios.api import lnZ_TTP

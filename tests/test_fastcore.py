@@ -37,7 +37,7 @@ class TestChebProxy:
         assert err.max() < 1e-5, f"max cheb proxy error {err.max():.2e}"
 
     def test_deficit_accuracy_twin_band_f64(self):
-        """VERDICT round-1 item 4: fast-vs-exact deficit gate < 1e-6 over
+        """Fast-vs-exact deficit gate < 1e-6 over
         k in [0.9, 1.1] (the EBx2P twin regime), in f64 so the algorithmic
         error is measured without the f32 rounding floor. Includes the
         razor band |k-1| ~ 1e-4 where the mirror branch point at

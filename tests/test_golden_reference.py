@@ -20,8 +20,8 @@ REF = "/root/reference/examples"
 
 # the Kepler-10b case runs whenever the reference mount exists (the one
 # always-on real-data anchor, so the CPU suite is not purely
-# self-generated — VERDICT round-1 weak item 5); the rest stays behind
-# RUN_GOLDEN (heavy; run on TPU via bench_scripts/validate_golden.py)
+# self-generated); the rest stays behind RUN_GOLDEN (heavy; run on the
+# GPU via bench_scripts/validate_golden.py)
 pytestmark = pytest.mark.skipif(
     not os.path.isdir(REF),
     reason="reference examples not mounted")
@@ -68,10 +68,9 @@ class TestKepler10b:
         t.calc_probs(time, flux, sigma, P_orb=0.837, N=100000, nsamples=2,
                      verbose=0, key=jax.random.key(0))
         assert np.isfinite(t.FPP)
-        # measured FPP at this config is ~4e-6 (TPU N=1e6 value 3.8e-6,
+        # measured FPP at this config is ~4e-6 (N=1e6 value 3.8e-6,
         # published 8.4e-6): a 1e-2 gate catches a 100x regression while
-        # leaving ~3 orders of MC/background headroom (VERDICT round-2
-        # item 6 tightened this from the old 0.1 gate)
+        # leaving ~3 orders of MC/background headroom
         assert t.FPP < 1e-2, f"Kepler-10b FPP={t.FPP} (expected ~4e-6)"
         assert t.NFPP == 0.0
         p = t.probs["prob"].values

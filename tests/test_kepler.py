@@ -49,7 +49,7 @@ class TestSolveKepler:
         (sinE, cosE), not sin/cos of the unwrapped E (the module's
         'callers must use the returned pair' contract). Gate them
         directly at 1.5e-6 against the f64 solve over a stress grid that
-        includes the high-e near-pericenter band (VERDICT r4 weak #5)."""
+        includes the high-e near-pericenter band."""
         rng = np.random.default_rng(9)
         n = 500000
         M = rng.uniform(-40, 40, n)

@@ -1,5 +1,5 @@
-"""Recorded-fixture tests for the network ladder (VERDICT round-1
-item 8): TRILEGAL query/save/parse, SPOC directory scrape and aperture
+"""Recorded-fixture tests for the network ladder: TRILEGAL
+query/save/parse, SPOC directory scrape and aperture
 extraction — all offline, with canned payloads standing in for the live
 services (reference funcs.py:241-475).
 

@@ -1,5 +1,5 @@
 """Offline tests for the FITS/aperture/cutout behaviors that normally
-need the network (VERDICT round-1 weak item 7): get_spoc_apertures
+need the network: get_spoc_apertures
 success/failure, plot_field rendering, and the Kepler/K2 TPF padding
 math in _fetch_cutouts (reference triceratops.py:148-226, :337-356).
 

@@ -1,4 +1,4 @@
-"""Reference-formula oracle tests (round-1 VERDICT item 3).
+"""Reference-formula oracle tests.
 
 A literal NumPy-float64 transcription of the reference's lnZ_TTP /
 lnZ_TEB evidence chains — orbit solve, transit-probability and collision

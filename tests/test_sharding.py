@@ -132,9 +132,9 @@ class TestFullFPPSharded:
         assert np.all(np.abs(out[1][0] - out[4][0]) < 0.08)
 
     def test_matches_single_device_api(self, full_batch_inputs):
-        """Sharded full-FPP == the product lnZ_* path within MC noise
-        (VERDICT round-1 item 2). Non-twin scenarios agree to ~0.4 nats
-        at N=64k (measured); twins are max-dominated and looser."""
+        """Sharded full-FPP == the product lnZ_* path within MC noise.
+        Non-twin scenarios agree to ~0.4 nats at N=64k (measured); twins
+        are max-dominated and looser."""
         targets, batch, n_t, has_cc, trilegal = full_batch_inputs
         from triceratops_tpu.scenarios import api
         from triceratops_tpu.core.numerics import normalize_probabilities

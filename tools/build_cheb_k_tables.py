@@ -6,8 +6,7 @@ D(z) per draw as three Chebyshev series (one per z-segment, each under
 the symmetric sqrt map — ops/fastcore.py module docstring). The series
 coefficients were originally derived per draw from 54 exact kernel node
 evaluations (ops/occult.py Green's-theorem kernel) — the most expensive
-stage of the 1e6-draw core after the Kepler solve (~29 ms/core on a
-v5e). But the DCT is linear and
+stage of the core after the Kepler solve. But the DCT is linear and
 
     D = (c0*A0 + c1*A1 + c2*J) / (pi*omega),
 
@@ -17,7 +16,7 @@ A1 (int sqrt(1-r^2)), J (int r^2) depend only on the radius ratio k.
 This script tabulates those 3x18x3 = 162 scalar functions of k as
 piecewise Chebyshev series in a mapped k variable, k^2-normalized so
 small-k coefficients stay O(1) (D -> k^2 * I(z)/(4 omega') as k -> 0).
-At runtime the per-draw stage is then one small MXU matmul
+At runtime the per-draw stage is then one small matmul
 (ops/fastcore.py cheb_deficit_coeffs_tab).
 
 k-segment layout. Breakpoints at 6/7, 1 -/+ 1/300 and 7/6 are the kinks
@@ -27,7 +26,7 @@ is the contact-degeneracy point, approached with sqrt-resolved maps
 worst-case deficit error of the tabulation vs per-draw exact-node
 coefficients (f64, over k x z x the LDC-grid (u1,u2) corners incl. the
 worst-amplification pair): 7.7e-8 — an order below the 8e-7 proxy
-truncation budget (bench_scripts/proto_cheb_tab.py).
+truncation budget (tests/test_fastcore.py gates it).
 
 Output: triceratops_tpu/data/cheb_k_tables.npz
   breaks (9,) f8, kinds (8,) i8 (0 affine, 1 log, 2 sqrt_hi, 3 sqrt_lo),

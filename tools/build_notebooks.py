@@ -56,7 +56,7 @@ TUTORIAL = [
 # triceratops_tpu tutorial — vetting a transit candidate offline
 
 This notebook walks through the full TRICERATOPS workflow on the
-TPU-native rebuild: build a star field, compute per-star dilution,
+JAX rebuild: build a star field, compute per-star dilution,
 marginalize the scenario likelihoods, and read off the false-positive
 probability (FPP) and nearby false-positive probability (NFPP).
 
@@ -93,7 +93,7 @@ t.stars"""),
 We synthesize a 3 R_earth planet transit with the package's own forward
 model and add white noise. With real data you would phase-fold and
 (optionally) bin your light curve — unbinned 20k-point curves are fine
-on TPU."""),
+on a GPU."""),
     ("code", """\
 n_t, sigma, P_orb = 100, 4e-4, 3.0
 time = np.linspace(-0.15, 0.15, n_t)
@@ -242,11 +242,11 @@ KEPLER = [
 # Kepler-10b — a real-data anchor
 
 This notebook reproduces the reference's `kepler_example.ipynb` on the
-TPU-native rebuild: the real folded short-cadence Kepler-10b light
+JAX rebuild: the real folded short-cadence Kepler-10b light
 curve, the published stellar parameters, and the full FPP calculation.
 The published reference FPP is **8.4e-6** (kepler_example.ipynb cell
 12); this run lands within the Monte-Carlo/background spread of that
-value (measured 3.8e-6 at N=1e6 on TPU; see `docs/parity.md`).
+value (measured 3.8e-6 at N=1e6; see `docs/parity.md`).
 
 The light curve is read from the reference's bundled examples at
 `/root/reference/examples` (kept external to this package). The
@@ -283,8 +283,8 @@ t.stars"""),
 ## FPP
 
 P_orb = 0.837 d; importance sampling makes N=100k here comparable in
-effective sample size to the reference's 1e6 rejection draws (on TPU
-use N=1e6 — the full 15-scenario set runs in ~1.6 s)."""),
+effective sample size to the reference's 1e6 rejection draws (on a GPU
+use N=1e6)."""),
     ("code", """\
 t.calc_probs(time, flux, sigma, P_orb=0.837, N=N, nsamples=2,
              verbose=0, key=jax.random.key(0))

@@ -1,7 +1,7 @@
 """Summarize a catalog-replay csv into a markdown results note.
 
 Usage:  python tools/summarize_replay.py /tmp/catalog_replay.csv \
-            [wall_seconds] > bench_scripts/results/catalog_replay_r2.md
+            [wall_seconds] > catalog_replay.md
 """
 
 import sys
@@ -26,7 +26,7 @@ def main(csv_path, wall_s=None):
                  "throughput and end-to-end stability at catalog scale.")
     lines.append("")
     if wall_s:
-        lines.append(f"- wall time: {float(wall_s):.0f} s on one v5e chip "
+        lines.append(f"- wall time: {float(wall_s):.0f} s "
                      f"({float(wall_s)/n:.2f} s/target incl. first "
                      "compile; reference CPU path: ~60 s/target = "
                      f"~{60*n/3600:.1f} h for the same sweep)")

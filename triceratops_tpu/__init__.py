@@ -1,7 +1,7 @@
-"""triceratops_tpu — TPU-native Bayesian vetting of transiting-planet
-candidates.
+"""triceratops_tpu — accelerator-native Bayesian vetting of
+transiting-planet candidates.
 
-A from-scratch JAX/XLA/Pallas reimplementation of the TRICERATOPS
+A from-scratch JAX/XLA reimplementation of the TRICERATOPS
 framework (Giacalone et al. 2021, AJ 161, 24): given a phase-folded
 transit light curve and the star field around the target, it
 Monte-Carlo-marginalizes the likelihood of ~15-20 astrophysical scenarios
@@ -21,69 +21,22 @@ import os as _os
 
 import jax as _jax
 
-# persistent XLA compilation cache: the ~20 jitted scenario programs
-# compile once per (shape, config) and are reused across processes.
-# The directory is salted with a host-machine fingerprint: XLA:CPU cache
-# entries are AOT executables specialized to the compile machine's ISA
-# features, and loading one on a host with different features can SIGILL
-# (observed as a segfault inside backend_compile_and_load when a cache
-# populated on another machine was reused).
+
+def compilation_cache_dir(environ=_os.environ):
+    """Directory this package points JAX's persistent compilation cache
+    at: None when JAX_COMPILATION_CACHE_DIR is set (JAX reads that
+    itself), else one fixed directory inside the checkout, so that every
+    process of a checkout shares compiled programs."""
+    if environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _os.path.join(_os.path.dirname(_os.path.dirname(
+        _os.path.abspath(__file__))), ".jax_cache")
 
 
-def _machine_tag():
-    import hashlib
-    import platform
-
-    tag = platform.machine() or "unknown"
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    tag += "-" + hashlib.sha1(line.encode()).hexdigest()[:10]
-                    break
-    except OSError:  # pragma: no cover - non-Linux hosts
-        pass
-    return tag
-
-
-def _prune_stale_fingerprints(base, keep, max_age_days=30):
-    """Best-effort removal of sibling fingerprint dirs (other machines'
-    ISA tags, orphaned by microcode updates / VM migration) whose entries
-    are all older than max_age_days. Never touches the active tag."""
-    import shutil
-    import time
-
-    cutoff = time.time() - max_age_days * 86400.0
-    try:
-        entries = _os.listdir(base)
-    except OSError:
-        return
-    for name in entries:
-        path = _os.path.join(base, name)
-        if name == keep or not _os.path.isdir(path):
-            continue
-        try:
-            mtimes = [_os.path.getmtime(_os.path.join(path, f))
-                      for f in _os.listdir(path)]
-            if max(mtimes, default=_os.path.getmtime(path)) < cutoff:
-                shutil.rmtree(path, ignore_errors=True)
-        except OSError:  # pragma: no cover - races are fine, skip
-            continue
-
-
-try:
-    _tag = _machine_tag()
-    _default_base = _os.path.join(_os.path.expanduser("~"), ".cache",
-                                  "triceratops_tpu_xla")
-    _cache_dir = _os.environ.get("TRICERATOPS_TPU_CACHE",
-                                 _os.path.join(_default_base, _tag))
-    if _cache_dir == _os.path.join(_default_base, _tag):
-        _prune_stale_fingerprints(_default_base, _tag)
-    _os.makedirs(_cache_dir, exist_ok=True)
+_cache_dir = compilation_cache_dir()
+if _cache_dir is not None:
     _jax.config.update("jax_compilation_cache_dir", _cache_dir)
     _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover - cache is best-effort
-    pass
 
 from .frontend.target import target  # noqa: F401
 from .scenarios.api import (  # noqa: F401

@@ -22,8 +22,7 @@ Solver scheme (branch-free, vmappable), per dtype:
   round-off floor: measured on a 500k-point stress grid (incl.
   e in [0.9, 0.995] near pericenter) max |d sinE| 8.8e-7 vs the
   Newton-4 predecessor's 8.3e-7 — identical to round-off — while
-  spending 1 sin/cos pair per point instead of 4. Each avoided
-  sin+cos pair is ~5-10 ms per 1e6-draw scenario core on TPU.
+  spending 1 sin/cos pair per point instead of 4.
 * float64 (reference-accuracy path): fixed NEWTON_ITERS = 8 Newton
   with the starter E0 = M + e sin M + e^2 sin M cos M augmented by the
   cube-root pericenter behavior E ~ (6M/e)^(1/3); residual < 1e-10.
@@ -155,8 +154,7 @@ def z2_taylor(t, t0, P, a_R, inc, e, w):
     Closed-form orbital kinematics (Edot = n/beta, nudot =
     n sqrt(1-e^2)/beta^2, rdot = a e n sinE / beta, and their time
     derivatives) replace the two extra Kepler solves a finite-difference
-    quadratic needs; each avoided solve costs ~13 ms per 1e6-draw
-    scenario core on TPU. Used by the fast exposure-integration path
+    quadratic needs. Used by the fast exposure-integration path
     (ops/fastcore.exposure_z2_poly). Same conventions as projected_z.
 
     Returns (z2, dz2/dt, d2z2/dt2, front).

@@ -9,8 +9,9 @@ optional dependencies (mechanicalsoup, astropy, bs4) are absent.
 
 from __future__ import annotations
 
+import csv
+
 import numpy as np
-from pandas import read_csv
 
 from .constants import G, MSUN, RSUN, REARTH, AU, PI  # noqa: F401 (re-export)
 from .populations.stellar import stellar_relations, flux_relation  # noqa: F401
@@ -50,6 +51,24 @@ def file_to_contrast_curve(contrast_curve_file: str):
     (reference funcs.py:203-219)."""
     data = np.loadtxt(contrast_curve_file, delimiter=",")
     return data.T[0], np.abs(data.T[1])
+
+
+def read_csv_columns(path: str, drop_last: int = 0) -> dict:
+    """Columns of a headed csv as string arrays, keyed by header name,
+    without the last ``drop_last`` data rows. Rows shorter than the
+    header are padded with empty strings."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    header, body = rows[0], rows[1:len(rows) - drop_last]
+    n = len(header)
+    body = [r + [""] * (n - len(r)) for r in body]
+    cols = np.array(body, dtype=str).reshape(len(body), n)
+    return {name: cols[:, j] for j, name in enumerate(header)}
+
+
+def csv_floats(col) -> np.ndarray:
+    """A csv string column as float64 (empty fields -> NaN)."""
+    return np.array([float(v) if v.strip() else np.nan for v in col])
 
 
 def separation_at_contrast(delta_mags, separations, contrasts):
@@ -118,6 +137,7 @@ def save_trilegal(output_url, ID):
     filename, or 0.0 when the query was unavailable (reference
     funcs.py:307-333)."""
     from time import sleep
+    from pandas import read_csv
 
     if output_url is None:
         print("Could not access TRILEGAL. Ignoring BTP, BEB, BEBx2P, DTP, "
@@ -139,16 +159,16 @@ def trilegal_results(trilegal_fname: str, Tmag: float):
     """Parse a saved TRILEGAL csv: stars fainter than the target, with
     Tmags computed from J/Ks (Stassun et al. 2018 relations) when the
     TESS column is absent (reference funcs.py:335-403)."""
-    df = read_csv(trilegal_fname)[:-2]
-    Masses = df["Mact"].values.astype(float)
-    loggs = df["logg"].values.astype(float)
-    Teffs = 10 ** df["logTe"].values.astype(float)
-    Zs = np.array(df["[M/H]"], dtype=float)
-    Jmags = df["J"].values.astype(float)
-    Hmags = df["H"].values.astype(float)
-    Kmags = df["Ks"].values.astype(float)
-    if "TESS" in df.columns:
-        Tmags = df["TESS"].values.astype(float)
+    df = read_csv_columns(trilegal_fname, drop_last=2)
+    Masses = csv_floats(df["Mact"])
+    loggs = csv_floats(df["logg"])
+    Teffs = 10 ** csv_floats(df["logTe"])
+    Zs = csv_floats(df["[M/H]"])
+    Jmags = csv_floats(df["J"])
+    Hmags = csv_floats(df["H"])
+    Kmags = csv_floats(df["Ks"])
+    if "TESS" in df:
+        Tmags = csv_floats(df["TESS"])
     else:
         jk = Jmags - Kmags
         Tmags = np.where(

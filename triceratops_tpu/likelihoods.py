@@ -3,7 +3,7 @@
 Mirrors the reference's ``triceratops.likelihoods`` surface
 (reference: triceratops/likelihoods.py:27-587): scalar and batch ("_p")
 transiting-planet and eclipsing-binary light-curve simulators plus their
-log-likelihoods, built on the TPU-native occultation kernel instead of
+log-likelihoods, built on the branch-free occultation kernel instead of
 PyTransit. Conventions preserved:
 
 * w = (90 - argp) deg, t0 = 0 at mid-transit;

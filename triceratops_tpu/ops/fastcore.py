@@ -2,7 +2,7 @@
 per-exposure Kepler solves.
 
 Two exact-to-tolerance algebraic reductions make the chunked cores
-compute-light on the VPU (see ops/lightcurve.py for the cores):
+compute-light (see ops/lightcurve.py for the cores):
 
 1. **Chebyshev deficit proxy.** For one draw, the occultation deficit is
    a 1-D function D(z) of the sky separation at fixed (k, u1, u2),
@@ -20,7 +20,7 @@ compute-light on the VPU (see ops/lightcurve.py for the cores):
    (double zero)^{3/2} = analytic in x and the Chebyshev series
    converges geometrically instead of ~m^-4. Sampling each segment at
    M Chebyshev-Gauss nodes (in x) and building the series via a DCT
-   matmul (MXU) reduces the per-time-sample cost from a full kernel
+   matmul reduces the per-time-sample cost from a full kernel
    evaluation (~16 quadrature cosines) to two square roots plus a
    2M-flop Clenshaw recurrence. The middle break c = clip(6|1-k|, 0.02,
    half-width) keeps the k ~ 1 twin regime's mirror branch point (at
@@ -29,7 +29,7 @@ compute-light on the VPU (see ops/lightcurve.py for the cores):
    error over k in [0.01, 1.9] x physical (u1, u2), including the twin
    band k in [0.9, 1.1]: < 8e-7 in f64 at M = 18 (tests/test_fastcore.py;
    the earlier two-segment linear-map scheme was ~1e-4 worst-case in the
-   twin band, VERDICT.md round-1 item 4).
+   twin band).
 
 2. **Per-exposure Kepler.** The orbit is solved only at 3 points per
    exposure (center and edges) and z^2 is interpolated quadratically
@@ -107,9 +107,10 @@ def cheb_deficit_coeffs(k, u1, u2):
     DB1 = occult_quad_deficit(k, zB1, u1b, u2b)
     DB2 = occult_quad_deficit(k, zB2, u1b, u2b)
     dct = jnp.asarray(_DCT_T, DA.dtype)
-    cA = jnp.dot(DA, dct, preferred_element_type=DA.dtype)
-    cB1 = jnp.dot(DB1, dct, preferred_element_type=DA.dtype)
-    cB2 = jnp.dot(DB2, dct, preferred_element_type=DA.dtype)
+    hi = jax.lax.Precision.HIGHEST  # no TF32: the deficit budget is 8e-7
+    cA = jnp.dot(DA, dct, precision=hi, preferred_element_type=DA.dtype)
+    cB1 = jnp.dot(DB1, dct, precision=hi, preferred_element_type=DA.dtype)
+    cB2 = jnp.dot(DB2, dct, precision=hi, preferred_element_type=DA.dtype)
     return (cA, cB1, cB2, zsplit[:, 0], zmid[:, 0], 1.0 / wA[:, 0],
             1.0 / wB1[:, 0], 1.0 / wB2[:, 0])
 
@@ -126,7 +127,7 @@ def cheb_deficit_coeffs(k, u1, u2):
 # contact degeneracy), k^2-normalized so small-k rows stay O(1). The
 # per-draw stage then collapses from 54 exact kernel node evaluations
 # (~600 quadrature cosines + contact atan2s per draw) to one Chebyshev-
-# in-kappa recurrence plus a (N, sum_degs) @ (sum_degs, 162) MXU matmul.
+# in-kappa recurrence plus a (N, sum_degs) @ (sum_degs, 162) matmul.
 # Measured worst-case deficit error vs exact-node coefficients: 7.7e-8
 # (f64, over k x z x the LDC-grid (u1,u2) extremes), an order below the
 # 8e-7 proxy truncation budget.
@@ -167,7 +168,7 @@ def _tab_kappa_onehot(kc):
 
 def cheb_deficit_coeffs_tab(k, u1, u2):
     """Drop-in replacement for :func:`cheb_deficit_coeffs` evaluating the
-    pre-tabulated basis-coefficient functions of k (one MXU matmul per
+    pre-tabulated basis-coefficient functions of k (one matmul per
     chunk instead of 54 exact kernel node evaluations per draw)."""
     dtype = jnp.result_type(k.dtype, jnp.float32)
     kc = jnp.clip(k, _TAB_BREAKS[0], _TAB_BREAKS[-1]).astype(dtype)
@@ -195,7 +196,7 @@ def cheb_deficit_coeffs_tab(k, u1, u2):
     w = jnp.stack([(1.0 - u1 - 2.0 * u2) * scale,
                    (u1 + 2.0 * u2) * scale,
                    u2 * scale], axis=-1)                      # (N, 3)
-    coeffs = jnp.einsum("nsmb,nb->nsm", bas, w)
+    coeffs = jnp.sum(bas * w[:, None, None, :], axis=-1)      # (N, 3, M)
     cA, cB1, cB2 = coeffs[:, 0], coeffs[:, 1], coeffs[:, 2]
 
     kcol = k[:, None]
@@ -258,7 +259,7 @@ def cheb_deficit_eval(coeffs, z):
 def exposure_z2_poly(t_exp, h, P, a_R, inc, e, w):
     """Quadratic (Taylor) model of z^2 over each exposure from ONE
     Kepler solve with closed-form orbital derivatives (core/kepler.py
-    z2_taylor); each avoided solve is ~13 ms per 1e6-draw core on TPU.
+    z2_taylor).
 
     t_exp: (n_t,) exposure centers; h: half exposure length (unused by
     the Taylor form, kept for signature stability). Per-draw orbital
@@ -275,11 +276,7 @@ def exposure_z2_poly(t_exp, h, P, a_R, inc, e, w):
 def z_supersampled(q0, q1, q2, offsets):
     """z at supersample offsets from the quadratic z^2 model.
 
-    q*: (chunk, n_t); offsets: (ns,). Returns (chunk, ns, n_t): the
-    supersample axis sits second-minor so the minor (lane) dimension is
-    the n_t time axis — an (..., n_t, ns) layout would pad the ~6-wide
-    supersample axis to the 128-lane TPU tile (21x HBM waste on every
-    materialized intermediate)."""
+    q*: (chunk, n_t); offsets: (ns,). Returns (chunk, ns, n_t)."""
     d = offsets[None, :, None]
     q0e, q1e, q2e = q0[:, None, :], q1[:, None, :], q2[:, None, :]
     z2 = q0e + q1e * d + q2e * d * d

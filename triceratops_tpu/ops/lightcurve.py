@@ -9,7 +9,7 @@ program, blocked over the draw axis so memory stays O(chunk x n_ss)
 Two execution paths per core (static flag ``exact``):
 
 * fast (default): the per-draw Chebyshev deficit proxy + per-exposure
-  Kepler solves from ops/fastcore.py — ~10-20x fewer VPU transcendentals
+  Kepler solves from ops/fastcore.py — ~10-20x fewer transcendentals
   per (draw, sample) at < 1e-6 absolute flux error (validated in
   tests/test_fastcore.py).
 * exact: direct kernel + Kepler evaluation at every supersample, used as
@@ -52,12 +52,6 @@ SEC_GRID = np.linspace(-0.05, 0.05, 25)
 
 LN2PI = float(np.log(2.0 * np.pi))
 
-# Pallas schedule selector, read ONCE at import: the value is baked into
-# traced programs, so changing the env var after the first compile would
-# otherwise be silently ignored (stale kernel served from the jit cache).
-import os as _os
-PALLAS_V = _os.environ.get("TRICERATOPS_PALLAS_V", "2")
-
 
 def supersample_times(time: np.ndarray, exptime: float, nsamples: int) -> np.ndarray:
     """Supersampled exposure grid, (n_t * nsamples,) host array.
@@ -92,9 +86,8 @@ def _mean_deficit_exact(time, exptime, k, P, a_R, inc, e, w, u1, u2,
                         n_t, ns):
     """Exact path: full Kepler + kernel per supersample, (chunk, n_t)."""
     if ns > 1:
-        # supersample-major ordering (ns, n_t) flattened: keeps the time
-        # axis minor when reshaped back, so the ~ns-wide axis never lands
-        # in the 128-lane tile dimension
+        # supersample-major ordering (ns, n_t) flattened: the time axis
+        # stays minor (contiguous) when reshaped back for the mean
         offs = jnp.asarray(_ss_offsets(exptime, ns), time.dtype)
         t_ss = (offs[:, None] + time[None, :]).reshape(-1)
     else:
@@ -115,10 +108,9 @@ _GL_EXPO_MAX = 4
 
 def draw_chunk(n_t: int, ns: int) -> int:
     """Draw-axis chunk size for the lnL cores: keeps the (chunk,
-    n_t * gl_nodes) f32 intermediate ~40 MB. 16k draws/chunk measured ~8%
-    faster than 4k on TPU (fewer lax.map iterations) with flat memory
-    use; shared by the serial frontend and the sharded/catalog paths so
-    the heuristic lives in one place."""
+    n_t * gl_nodes) f32 intermediate ~40 MB, at most 16k draws; shared by
+    the serial frontend and the sharded/catalog paths so the heuristic
+    lives in one place."""
     n_ss = n_t * min(max(ns, 1), _GL_EXPO_MAX)
     return int(max(256, min(16384, (1 << 25) // max(n_ss, 1))))
 
@@ -150,7 +142,7 @@ def _mean_deficit_fast(time, exptime, k, P, a_R, inc, e, w, u1, u2,
         z = z_supersampled(q0, q1, q2, jnp.asarray(offs))  # (chunk, n_eff, n_t)
         D = cheb_deficit_eval(coeffs, z.reshape(z.shape[0], -1))
         D = D.reshape(z.shape) * front[:, None, :]
-        return jnp.einsum("cst,s->ct", D, jnp.asarray(wgt))
+        return jnp.sum(D * jnp.asarray(wgt)[None, :, None], axis=1)
     z, front = projected_z(time[None, :], 0.0, P[:, None], a_R[:, None],
                            inc[:, None], e[:, None], w[:, None])
     D = cheb_deficit_eval(coeffs, z)
@@ -163,80 +155,27 @@ def _mean_deficit(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns,
     return fn(time, exptime, k, P, a_R, inc, e, w, u1, u2, n_t, ns)
 
 
-def _chi2_pallas(time, exptime, obs_dev, k, P, a_R, inc, e, w, u1, u2, g,
-                 n_t, ns, interpret):
-    """Fused Pallas path: chi^2 directly from per-draw params
-    (ops/pallas_core.py); equivalent to the fast XLA path. v2 (draw-major
-    (256, 128) tiles) is the measured winner — 171 ms/1e6-draw core vs
-    XLA 206 ms; the v3 time-sublane skip schedule measured 188-271 ms
-    (grid-step overhead + mixed-tile lanes eat the skip win) and is kept
-    selectable for experiments via TRICERATOPS_PALLAS_V=3."""
-    if PALLAS_V == "3":
-        from .pallas_core import chi2_supersampled_v3 as chi2_supersampled
-    else:
-        from .pallas_core import chi2_supersampled
-
-    coeffs = deficit_coeffs(k, u1, u2)
-    cA, cB1, cB2, zsplit, zmid, invA, invB1, invB2 = coeffs
-    if ns > 1:
-        h = exptime / 2.0
-        q0, q1, q2, front = exposure_z2_poly(time, h, P, a_R, inc, e, w)
-        offs, wgt = _gl_exposure_nodes(exptime, ns)
-    else:
-        z, front = projected_z(time[None, :], 0.0, P[:, None], a_R[:, None],
-                               inc[:, None], e[:, None], w[:, None])
-        q0 = z * z
-        q1 = jnp.zeros_like(q0)
-        q2 = jnp.zeros_like(q0)
-        offs, wgt = np.zeros(1, np.float32), np.ones(1, np.float32)
-    seg = jnp.stack([zsplit, zmid, invA, invB1, invB2], axis=1)
-    return chi2_supersampled(
-        q0, q1, q2, front.astype(q0.dtype), cA, cB1, cB2, seg, g[:, None],
-        obs_dev[None, :], offs=tuple(float(o) for o in offs),
-        wgts=tuple(float(x) for x in wgt), interpret=interpret)
-
-
-def _resolve_backend(backend: str) -> str:
-    """'auto' -> the fused Pallas path on TPU-class backends, XLA on CPU
-    (measured on the v5e: pallas v2 is ~20% faster per 1e6-draw core via
-    out-of-transit tile skipping; off-accelerator it needs the slow
-    interpreter, so CPU keeps XLA)."""
-    if backend != "auto":
-        return backend
-    return "xla" if jax.default_backend() == "cpu" else "pallas"
-
-
 @partial(jax.jit,
-         static_argnames=("exptime", "n_t", "ns", "chunk", "exact",
-                          "backend", "interpret"))
+         static_argnames=("exptime", "n_t", "ns", "chunk", "exact"))
 def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
                *, exptime: float, n_t: int, ns: int, chunk: int = 4096,
-               exact: bool = False, backend: str = "auto",
-               interpret: bool = False):
+               exact: bool = False):
     """Transiting-planet family log-likelihoods for N draws.
 
     Returns lnL (N,) = -0.5 ln 2pi - ln sigma - 0.5 chi^2 for masked-in
     draws, -inf otherwise (reference marginal_likelihoods.py:117-137)."""
-    backend = _resolve_backend(backend)
     N = k.shape[0]
     inv_sig2 = 1.0 / (sigma * sigma)
     ln_sigma = jnp.log(sigma)
-    if backend == "pallas":
-        chunk = -(-chunk // 256) * 256
     (k_, P_, aR_, inc_, e_, w_, u1_, u2_, g_, m_) = _pad_chunk(
         [k, P, a_R, inc, e, w, u1, u2, g, mask], N, chunk)
 
     def body(args):
         kc, Pc, ac, ic, ec, wc, u1c, u2c, gc, mc = args
-        if backend == "pallas" and not exact:
-            chi2 = _chi2_pallas(time, exptime, obs_dev, kc, Pc, ac, ic, ec,
-                                wc, u1c, u2c, gc, n_t, ns,
-                                interpret) * inv_sig2
-        else:
-            D = _mean_deficit(time, exptime, kc, Pc, ac, ic, ec, wc, u1c,
-                              u2c, n_t, ns, exact)
-            resid = obs_dev[None, :] + gc[:, None] * D
-            chi2 = jnp.sum(resid * resid, axis=1) * inv_sig2
+        D = _mean_deficit(time, exptime, kc, Pc, ac, ic, ec, wc, u1c, u2c,
+                          n_t, ns, exact)
+        resid = obs_dev[None, :] + gc[:, None] * D
+        chi2 = jnp.sum(resid * resid, axis=1) * inv_sig2
         lnL = -0.5 * LN2PI - ln_sigma - 0.5 * chi2
         return jnp.where(mc, lnL, -jnp.inf)
 
@@ -246,11 +185,10 @@ def lnL_planet(time, obs_dev, sigma, k, P, a_R, inc, e, w, u1, u2, g, mask,
 
 @partial(jax.jit,
          static_argnames=("exptime", "n_t", "ns", "chunk", "apply_veto",
-                          "exact", "backend", "interpret"))
+                          "exact"))
 def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
            g_pri, g_sec, mask, *, exptime: float, n_t: int, ns: int,
-           chunk: int = 4096, apply_veto: bool = True, exact: bool = False,
-           backend: str = "auto", interpret: bool = False):
+           chunk: int = 4096, apply_veto: bool = True, exact: bool = False):
     """Eclipsing-binary family log-likelihoods for N draws.
 
     k is the (already quirk-adjusted) primary radius ratio, ksec the
@@ -259,36 +197,26 @@ def lnL_eb(time, obs_dev, sigma, k, ksec, P, a_R, inc, e, w, u1, u2,
     branch passes apply_veto=False (ref likelihoods.py:542-587). The
     25-point secondary scan always uses the exact kernel (it is a
     negligible fraction of the work)."""
-    backend = _resolve_backend(backend)
     N = k.shape[0]
     inv_sig2 = 1.0 / (sigma * sigma)
     ln_sigma = jnp.log(sigma)
-    if backend == "pallas":
-        chunk = -(-chunk // 256) * 256
     sec_grid = jnp.asarray(SEC_GRID, dtype=time.dtype)
     (k_, ks_, P_, aR_, inc_, e_, w_, u1_, u2_, gp_, gs_, m_) = _pad_chunk(
         [k, ksec, P, a_R, inc, e, w, u1, u2, g_pri, g_sec, mask], N, chunk)
 
     def body(args):
         kc, ksc, Pc, ac, ic, ec, wc, u1c, u2c, gpc, gsc, mc = args
-        if backend == "pallas" and not exact:
-            chi2 = _chi2_pallas(time, exptime, obs_dev, kc, Pc, ac, ic, ec,
-                                wc, u1c, u2c, gpc, n_t, ns,
-                                interpret) * inv_sig2
-        else:
-            D = _mean_deficit(time, exptime, kc, Pc, ac, ic, ec, wc, u1c,
-                              u2c, n_t, ns, exact)
-            resid = obs_dev[None, :] + gpc[:, None] * D
-            chi2 = jnp.sum(resid * resid, axis=1) * inv_sig2
+        D = _mean_deficit(time, exptime, kc, Pc, ac, ic, ec, wc, u1c, u2c,
+                          n_t, ns, exact)
+        resid = obs_dev[None, :] + gpc[:, None] * D
+        chi2 = jnp.sum(resid * resid, axis=1) * inv_sig2
         lnL = -0.5 * LN2PI - ln_sigma - 0.5 * chi2
         if apply_veto:
             # secondary eclipse scan: w + 180 deg, k -> ksec, no
-            # supersampling. Scan axis leads (25, chunk) so the draw axis
-            # fills the TPU lane dimension (25 minor would pad to 128).
-            # The deficit is monotone non-increasing in z, so the scan's
-            # max deficit equals ONE kernel eval at the minimum in-front
-            # z — 25x fewer exact-kernel calls than evaluating the grid
-            # (measured ~30 ms saved per 1e6-draw EB core on a v5e).
+            # supersampling, scan axis leading (25, chunk). The deficit is
+            # monotone non-increasing in z, so the scan's max deficit
+            # equals ONE kernel eval at the minimum in-front z — 25x fewer
+            # exact-kernel calls than evaluating the grid.
             zs, fronts = projected_z(
                 sec_grid[:, None], 0.0, Pc[None, :], ac[None, :],
                 ic[None, :], ec[None, :], wc[None, :] + jnp.pi,

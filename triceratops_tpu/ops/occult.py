@@ -1,4 +1,4 @@
-"""Quadratic limb-darkened occultation kernel (TPU-native, branch-free).
+"""Quadratic limb-darkened occultation kernel (branch-free, vectorized).
 
 Computes the flux *deficit* D(p, z) of a star of unit radius with quadratic
 limb darkening I(r) = 1 - u1(1-mu) - u2(1-mu)^2, mu = sqrt(1-r^2), occulted
@@ -7,7 +7,7 @@ by an opaque disk of radius ``p`` whose center is at sky-projected distance
 
 This replaces the PyTransit QuadraticModel Mandel-Agol kernel used by the
 reference (reference: triceratops/likelihoods.py:24-25, 61-71) with a
-formulation designed for TPU:
+formulation designed for wide SIMD hardware:
 
 Decompose I(r) = (1-u1-2u2) + (u1+2u2)*sqrt(1-r^2) + u2*r^2 - ... more
 precisely
@@ -36,7 +36,7 @@ eta after the endpoint-regularizing substitution eta = eta0 +
 32 nodes give < 1e-7 absolute error in D (validated in
 tests/test_occult.py against adaptive quadrature).
 
-All operations are elementwise (VPU), branch-free (where/clamp only), and
+All operations are elementwise, branch-free (where/clamp only), and
 f32-safe: no elliptic-integral case table, no z ~ p or z ~ 1-p special
 cases. The eta0 = pi limit automatically yields D = 0 out of transit and
 the kappa1 = pi limit yields total occultation.
@@ -58,7 +58,7 @@ import jax.numpy as jnp
 # under the 8e-7 Chebyshev-proxy budget, saving 5/16 of the quadrature
 # transcendentals in the per-draw coefficient stage. (10 nodes measured
 # 1.35e-7 worst-case at the same point — still within budget, but 11
-# buys a sub-1e-7 bound for ~1 extra node of VPU work.)
+# buys a sub-1e-7 bound for ~1 extra node of work.)
 _N_GL = 16          # float64 / reference-accuracy order
 _N_GL_F32 = 11      # float32 device-path order
 

@@ -7,7 +7,7 @@ The workload's parallel axes (SURVEY.md section 2.4) map onto a 2-D
   TOIs (pure data parallel; per-target reductions are chip-local).
 * ``draws`` axis — a single target's Monte-Carlo draw axis is sharded so
   one FPP can use many chips; the only cross-chip communication is the
-  evidence reduction, a pmax/psum logsumexp tree over ICI.
+  evidence reduction, a pmax/psum logsumexp across the draws axis.
 
 ``batch_fpp_tp_eb`` runs the core scenario set (TP, EB, EBx2P — the
 minimum end-to-end slice of SURVEY.md section 7) for a batch of targets
@@ -30,13 +30,8 @@ from functools import lru_cache, partial
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
-try:  # jax >= 0.8: public API, replication check renamed check_rep->check_vma
-    from jax import shard_map
-    _NO_REP_CHECK = {"check_vma": False}
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
-    _NO_REP_CHECK = {"check_rep": False}
 
 from ..core.numerics import logsumexp_jax
 from ..ops.lightcurve import lnL_planet, lnL_eb
@@ -141,7 +136,7 @@ def batch_fpp_tp_eb(mesh: Mesh, keys, times, obs_dev, sigmas, P_orbs,
     @partial(shard_map, mesh=mesh,
              in_specs=(P("targets"),) * 10,
              out_specs=(P("targets"), P("targets")),
-             **_NO_REP_CHECK)
+             check_vma=False)
     def step(keys, times, obs_dev, sigmas, P_orbs, M_ss, R_ss, Teffs,
              u1s, u2s):
         return jax.vmap(per_target)(keys, times, obs_dev, sigmas, P_orbs,
@@ -311,7 +306,7 @@ def batch_fpp_full(mesh: Mesh, batch: dict, *, N: int, n_t: int, ns: int,
 
     The batch axis shards over 'targets'; each target's N draws split
     over 'draws' (i.i.d. per shard via folded keys); the only cross-chip
-    communication is the per-scenario evidence logsumexp over ICI.
+    communication is the per-scenario evidence logsumexp.
     Returns (FPP, NFPP, lnZ (B, 15 + 3K)) ordered as FULL_SCENARIOS then
     (NTP, NEB, NEBx2P) per slot; FPP = 1 - (P_TP + P_PTP + P_DTP),
     NFPP = sum of the nearby-star probabilities (triceratops.py:
@@ -345,11 +340,10 @@ def batch_fpp_full(mesh: Mesh, batch: dict, *, N: int, n_t: int, ns: int,
     B = batch["key"].shape[0]
 
     # one jitted sharded program per scenario FAMILY, all enqueued
-    # before anything is pulled: on one chip this restores the serial
-    # path's async-dispatch overlap (the round-2 fused megaprogram ran
-    # 4.4 s/target vs 2.4 serial because one big serialized program
-    # cannot overlap host prep/dispatch with device compute); on many
-    # chips each program shards identically to the old fused step.
+    # before anything is pulled: on one device this keeps the serial
+    # path's async-dispatch overlap (one big fused program cannot
+    # overlap host prep/dispatch with device compute); on many devices
+    # each program shards identically to a fused step.
     rows = [None] * 15
     for fam, idxs in _FAMILY_ROWS:
         if set(idxs) <= set(drop_idx):
@@ -571,7 +565,7 @@ def _build_family_step(mesh, fam, cfg):
 
     @partial(shard_map, mesh=mesh, in_specs=(P("targets"),),
              out_specs=(P("targets"),) * n_out,
-             **_NO_REP_CHECK)
+             check_vma=False)
     def step(batch_shard):
         return jax.vmap(per_target)(batch_shard)
 

@@ -15,14 +15,18 @@ from __future__ import annotations
 
 from functools import lru_cache
 from pathlib import Path
+from typing import TYPE_CHECKING
 
-import pandas as pd
+if TYPE_CHECKING:
+    import pandas as pd
 
 _DATA = Path(__file__).resolve().parent.parent / "data"
 
 
 @lru_cache(maxsize=None)
 def _load(name: str) -> pd.DataFrame:
+    import pandas as pd
+
     return pd.read_parquet(_DATA / f"catalog_{name}.parquet")
 
 

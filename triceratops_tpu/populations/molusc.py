@@ -11,16 +11,17 @@ denominator, so kept/N carries the companion-frequency weight).
 from __future__ import annotations
 
 import numpy as np
-from pandas import read_csv
+
+from ..funcs import csv_floats, read_csv_columns
 
 
 def load_molusc_kept(molusc_file: str, M_s: float) -> np.ndarray:
     """Surviving companion mass ratios (un-padded), with the reference's
     periastron cut and mass-ratio floor (ml.py:455-464)."""
-    df = read_csv(molusc_file)
-    a = df["semi-major axis(AU)"].values
-    e = df["eccentricity"].values
-    q = df[a * (1 - e) > 10]["mass ratio"].values.copy()
+    df = read_csv_columns(molusc_file)
+    a = csv_floats(df["semi-major axis(AU)"])
+    e = csv_floats(df["eccentricity"])
+    q = csv_floats(df["mass ratio"])[a * (1 - e) > 10]
     q[q < 0.1 / M_s] = 0.1 / M_s
     return q
 

@@ -75,8 +75,7 @@ def ppoly_eval_jnp(x, breaks, coefs):
     breaks/coefs must be host numpy arrays (trace-time constants): the
     interval index is a comparison sum and the per-interval coefficients
     are nested scalar selects — no searchsorted, no gather. The former
-    searchsorted + table-gather form collapsed under vmap (a vmapped
-    EB sampler went 30 ms -> 1.5 s for a batch of 8 on a v5e; XLA lowers
+    searchsorted + table-gather form was slow under vmap (XLA lowers
     batched small-table gathers poorly), while select chains over <= 15
     trace-time constants vectorize identically in every context."""
     breaks = np.asarray(breaks)

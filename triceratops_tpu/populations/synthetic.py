@@ -15,8 +15,9 @@ Columns mirror a ``save_trilegal`` csv (funcs.py:307-333) so
 
 from __future__ import annotations
 
+import csv
+
 import numpy as np
-import pandas as pd
 
 from ..constants import G, MSUN, RSUN
 from .stellar import stellar_relations, flux_relation
@@ -63,7 +64,7 @@ def make_synthetic_trilegal(path, Tmag_target: float = 10.0,
         idx = np.concatenate([idx, extra])
     m = len(idx) + 2  # +2 rows dropped by the parser (termination banner)
     sel = np.concatenate([idx, idx[:2]])
-    df = pd.DataFrame({
+    cols = {
         "Gc": np.ones(m, int),
         "logAge": np.full(m, 9.3),
         "[M/H]": mh[sel],
@@ -78,6 +79,11 @@ def make_synthetic_trilegal(path, Tmag_target: float = 10.0,
         "J": (M_J + mu)[sel],
         "H": (M_H + mu)[sel],
         "Ks": (M_K + mu)[sel],
-    })
-    df.to_csv(path)
+    }
+    # the layout of a pandas to_csv with its index column
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([""] + list(cols))
+        for i, row in enumerate(zip(*(c.tolist() for c in cols.values()))):
+            w.writerow([i, *map(repr, row)])
     return str(path)

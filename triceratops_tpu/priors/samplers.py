@@ -87,9 +87,8 @@ _BETA_A, _BETA_B = 0.867, 3.030
 # Gather-free Beta PPF: two Chebyshev segments in the cusp-absorbing
 # variables v = u^{1/a} (u <= _BETA_USPLIT; PPF = v R(v), R analytic)
 # and w = (1-u)^{1/b} (u > _BETA_USPLIT; PPF = 1 - w S(w)). Replaces the
-# former 8193-point jnp.interp table: the binary-search gathers cost
-# ~120 ms per 1e6-draw planet sampler on a v5e; this form is one pow +
-# a 16-step Clenshaw on scalar constants (~free). Max |error| vs
+# former 8193-point jnp.interp table and its binary-search gathers with
+# one pow + a 16-step Clenshaw on scalar constants. Max |error| vs
 # scipy.stats.beta.ppf: 2.7e-7 over u in [0, 1].
 _BETA_USPLIT = 0.9
 _BETA_M = 16

@@ -3,8 +3,8 @@
 Signatures, semantics, and returned best-fit dictionaries mirror the
 reference's ``triceratops.marginal_likelihoods`` module
 (reference: marginal_likelihoods.py:39-3178); the computation is the
-TPU-native engine (keyed RNG -> jitted sampling -> chunked transit kernel
--> on-device evidence reduction). ``parallel`` is accepted for signature
+vectorized JAX engine (keyed RNG -> jitted sampling -> chunked transit
+kernel -> on-device evidence reduction). ``parallel`` is accepted for signature
 compatibility and ignored: there is only the vectorized path, which
 eliminates the reference's parallel-vs-serial mask-parity bug class by
 construction (SURVEY.md section 5.2).

@@ -166,9 +166,8 @@ def _background_prior(has_cc, N_comp, fluxratios_draw, delta_band_draw,
 
 
 # field order of the packed background/lookalike tables (one (N_rows, F)
-# f32 matrix, gathered once per draw batch: a single packed row gather
-# costs ~2 ms per 1e6 draws on a v5e vs ~59 ms for the 9 per-field
-# gathers it replaces)
+# f32 matrix, gathered once per draw batch: one packed row gather in
+# place of 9 per-field gathers)
 BG_PACK_FIELDS = ("fluxratios", "delta_band", "masses", "radii", "loggs",
                   "teffs", "u1s", "u2s", "fluxratios_cc")
 POP_PACK_FIELDS = ("masses", "radii", "loggs", "teffs", "u1s", "u2s")
@@ -475,7 +474,7 @@ def _lattice_strat(u, axes, n, key):
     is unbiased but INCREASES variance on needle integrands (all lanes
     hit or miss the needle together).
 
-    Cost control (the sorts showed up as ~0.12 s on the 15-scenario
+    Cost control (the sorts are a visible share of the 15-scenario
     bench): the FIRST stratified axis keeps the identity assignment —
     classic stratified sampling needs no permutation on one axis; the
     estimator stays exactly unbiased because the other axes' draws are

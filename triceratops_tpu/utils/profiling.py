@@ -1,12 +1,10 @@
-"""Profiling and throughput instrumentation.
+"""Profiling instrumentation.
 
 The reference has no tracing (performance was measured with notebook
 %%time cells — SURVEY.md section 5.1); here a thin harness exposes:
 
 * ``trace(logdir)`` — context manager around ``jax.profiler`` for
-  XLA/TPU traces viewable in TensorBoard/Perfetto.
-* ``throughput(fn, *args, draws, repeats)`` — wall time and
-  scenario-draws/second for a jitted callable (the BASELINE.md metric).
+  device traces viewable in TensorBoard/Perfetto.
 * ``timed(label)`` — lightweight wall-clock section timer.
 """
 
@@ -33,20 +31,3 @@ def timed(label: str = "section", printer=print):
     t0 = _time.perf_counter()
     yield
     printer(f"[{label}] {_time.perf_counter() - t0:.3f}s")
-
-
-def throughput(fn, *args, draws: int, repeats: int = 3, warmup: int = 1,
-               **kwargs):
-    """(best wall seconds, draws/second) for a jitted callable.
-
-    ``draws`` is the number of scenario-draws the call evaluates (the
-    BASELINE.md unit: one draw = one supersampled model light curve +
-    chi^2)."""
-    for _ in range(warmup):
-        jax.block_until_ready(fn(*args, **kwargs))
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = _time.perf_counter()
-        jax.block_until_ready(fn(*args, **kwargs))
-        best = min(best, _time.perf_counter() - t0)
-    return best, draws / best
